@@ -31,14 +31,14 @@ def main():
 
     from demos.smoothing import load_or_generate, save_obj
 
-    from gravo_mg_tpu import MultigridSolver
-    from gravo_mg_tpu.utils.laplacian import (
+    from gravo_mg import MultigridSolver
+    from gravo_mg.utils.laplacian import (
         cotan_laplacian,
         mass_voronoi,
         mesh_laplacian_robust,
     )
-    from gravo_mg_tpu.utils.neighbors import neighbors_from_faces
-    from gravo_mg_tpu.utils.normalize import normalize_area
+    from gravo_mg.utils.neighbors import neighbors_from_faces
+    from gravo_mg.utils.normalize import normalize_area
 
     V, F = load_or_generate(args.input)
     V = normalize_area(V, F)

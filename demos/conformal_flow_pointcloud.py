@@ -23,11 +23,11 @@ def main():
     ap.add_argument("--out", type=str, default="/tmp/pc_flow")
     args = ap.parse_args()
 
-    from gravo_mg_tpu import MultigridSolver
-    from gravo_mg_tpu.utils.laplacian import point_cloud_laplacian
-    from gravo_mg_tpu.utils.meshgen import point_cloud
-    from gravo_mg_tpu.utils.neighbors import neighbors_from_stiffness
-    from gravo_mg_tpu.utils.normalize import normalize_bounding_box
+    from gravo_mg import MultigridSolver
+    from gravo_mg.utils.laplacian import point_cloud_laplacian
+    from gravo_mg.utils.meshgen import point_cloud
+    from gravo_mg.utils.neighbors import neighbors_from_stiffness
+    from gravo_mg.utils.normalize import normalize_bounding_box
 
     P = normalize_bounding_box(point_cloud(args.n, seed=3))
     print(f"point cloud: {P.shape[0]} points")

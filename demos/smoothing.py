@@ -2,7 +2,7 @@
 """Implicit mesh smoothing demo (reference: demos/smoothing.py:20-74).
 
 Solves ``(M + tau*S) x = M V`` with the cotan Laplacian and Voronoi mass,
-using the TPU multigrid solver.  Headless: reads an OBJ (or generates a
+using the multigrid solver.  Headless: reads an OBJ (or generates a
 bumpy icosphere), writes the smoothed mesh next to the input.  With
 ``--gui`` and polyscope installed, shows the result interactively.
 """
@@ -17,7 +17,7 @@ import numpy as np
 
 
 def load_or_generate(path):
-    from gravo_mg_tpu.utils.meshgen import icosphere
+    from gravo_mg.utils.meshgen import icosphere
 
     if path is None:
         return icosphere(5, bump=0.2)
@@ -49,10 +49,10 @@ def main():
     ap.add_argument("--gui", action="store_true")
     args = ap.parse_args()
 
-    from gravo_mg_tpu import MultigridSolver
-    from gravo_mg_tpu.utils.laplacian import cotan_laplacian, mass_voronoi
-    from gravo_mg_tpu.utils.neighbors import neighbors_from_faces
-    from gravo_mg_tpu.utils.normalize import normalize_area
+    from gravo_mg import MultigridSolver
+    from gravo_mg.utils.laplacian import cotan_laplacian, mass_voronoi
+    from gravo_mg.utils.neighbors import neighbors_from_faces
+    from gravo_mg.utils.normalize import normalize_area
 
     V, F = load_or_generate(args.input)
     V = normalize_area(V, F)

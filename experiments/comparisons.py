@@ -23,16 +23,16 @@ import jax.numpy as jnp
 import numpy as np
 from scipy import sparse
 
-from gravo_mg_tpu import Hierarchy, MultigridSolver, Sampling, Weighting
-from gravo_mg_tpu.utils.laplacian import (
+from gravo_mg import Hierarchy, MultigridSolver, Sampling, Weighting
+from gravo_mg.utils.laplacian import (
     cotan_laplacian,
     mass_voronoi,
     mesh_laplacian_robust,
     per_vertex_normals,
     point_cloud_laplacian,
 )
-from gravo_mg_tpu.utils.neighbors import neighbors_from_stiffness
-from gravo_mg_tpu.utils.normalize import (
+from gravo_mg.utils.neighbors import neighbors_from_stiffness
+from gravo_mg.utils.normalize import (
     normalize_area,
     normalize_bounding_box,
 )
@@ -44,7 +44,7 @@ def read_mesh(path):
     path = pathlib.Path(path)
     V, F = [], []
     if path.suffix == ".ply":
-        from gravo_mg_tpu.utils.io import read_ply
+        from gravo_mg.utils.io import read_ply
 
         V, F = read_ply(path)
         if F is None:
@@ -84,7 +84,7 @@ def list_shapes(dir_path):
 
 def generated_shapes(sizes):
     """Procedural stand-ins for the paper's mesh suite."""
-    from gravo_mg_tpu.utils.meshgen import icosphere, torus_mesh
+    from gravo_mg.utils.meshgen import icosphere, torus_mesh
 
     shapes = []
     for tag, size in sizes:
@@ -131,7 +131,7 @@ def run(args):
             if args.pointcloud:
                 # Point-cloud runs read positions only (reference
                 # comparisons.py:67-69 via util.read_pointcloud).
-                from gravo_mg_tpu.utils.io import read_pointcloud
+                from gravo_mg.utils.io import read_pointcloud
 
                 V, F = read_pointcloud(f), None
             else:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Validate smoother retuning + upload-excluded timing at 1M on TPU.
+"""Validate smoother retuning + upload-excluded timing at 1M on the device.
 
 Solves the bench Poisson system with several (degree, cheb_ratio)
 configs and reports warm fused solve time, iterations, and the verified
@@ -30,10 +30,10 @@ def main():
                     default="2:4,2:12,3:12,4:12,4:16")
     args = ap.parse_args()
 
-    from gravo_mg_tpu import MultigridSolver
-    from gravo_mg_tpu.utils.laplacian import cotan_laplacian, mass_barycentric
-    from gravo_mg_tpu.utils.meshgen import torus_mesh
-    from gravo_mg_tpu.utils.neighbors import neighbors_from_faces
+    from gravo_mg import MultigridSolver
+    from gravo_mg.utils.laplacian import cotan_laplacian, mass_barycentric
+    from gravo_mg.utils.meshgen import torus_mesh
+    from gravo_mg.utils.neighbors import neighbors_from_faces
 
     V, F = torus_mesh(args.nu, args.nv)
     n = V.shape[0]

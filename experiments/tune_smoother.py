@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Chebyshev band / degree sweep for the V-cycle smoother (VERDICT r3 #3).
+"""Chebyshev band / degree sweep for the V-cycle smoother.
 
 Sweeps (cheb_ratio, pre/post degree) over the bench Poisson problem at a
 configurable mesh size and reports cycles-to-tolerance plus a cost proxy
 (cycles * fine-level A-applies per cycle), which is what actually
 predicts wall-clock: a deeper smoother that saves too few cycles loses.
 
-Runs on CPU by default (force with --cpu) so it can execute alongside
-TPU work; iteration counts are device-independent.
+With --cpu it runs on the host, so it can execute alongside device
+work; iteration counts are device-independent.
 
 Usage: python experiments/tune_smoother.py [--nu 512 --nv 512] [--cpu]
 """
@@ -43,10 +43,10 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from gravo_mg_tpu import MultigridSolver
-    from gravo_mg_tpu.utils.laplacian import cotan_laplacian, mass_barycentric
-    from gravo_mg_tpu.utils.meshgen import torus_mesh
-    from gravo_mg_tpu.utils.neighbors import neighbors_from_faces
+    from gravo_mg import MultigridSolver
+    from gravo_mg.utils.laplacian import cotan_laplacian, mass_barycentric
+    from gravo_mg.utils.meshgen import torus_mesh
+    from gravo_mg.utils.neighbors import neighbors_from_faces
 
     V, F = torus_mesh(args.nu, args.nv)
     n = V.shape[0]

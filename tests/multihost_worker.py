@@ -21,7 +21,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-from gravo_mg_tpu.parallel import multihost
+from gravo_mg.parallel import multihost
 
 multihost.initialize(
     coordinator_address=f"127.0.0.1:{port}", num_processes=nproc,
@@ -32,11 +32,11 @@ assert len(jax.devices()) == 4 * nproc
 
 import numpy as np
 
-from gravo_mg_tpu import MultigridSolver
-from gravo_mg_tpu.parallel.halo import HaloContext
-from gravo_mg_tpu.utils.laplacian import cotan_laplacian, mass_barycentric
-from gravo_mg_tpu.utils.meshgen import torus_mesh
-from gravo_mg_tpu.utils.neighbors import neighbors_from_faces
+from gravo_mg import MultigridSolver
+from gravo_mg.parallel.halo import HaloContext
+from gravo_mg.utils.laplacian import cotan_laplacian, mass_barycentric
+from gravo_mg.utils.meshgen import torus_mesh
+from gravo_mg.utils.neighbors import neighbors_from_faces
 
 V, F = torus_mesh(48, 48)
 n = V.shape[0]

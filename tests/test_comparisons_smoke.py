@@ -26,13 +26,13 @@ args = p.parse_args([
     "--label", "smoke", "--out_dir", {str(tmp_path)!r},
     "--sig06", "--direct", "--cg", "--tolerance", "1e-4",
 ])
-from gravo_mg_tpu import Sampling, Weighting
+from gravo_mg import Sampling, Weighting
 args.sampling = Sampling.FASTDISK
 args.weighting = Weighting.BARYCENTRIC
 args.sig21 = True
 # one tiny shape only
 import numpy as np
-from gravo_mg_tpu.utils.meshgen import icosphere
+from gravo_mg.utils.meshgen import icosphere
 V, F = icosphere(3, bump=0.1)
 comparisons.generated_shapes = lambda sizes: [("sphere_s", V, F)]
 comparisons.run(args)

@@ -9,8 +9,8 @@ for."""
 import numpy as np
 import pytest
 
-from gravo_mg_tpu import MultigridSolver
-from gravo_mg_tpu.solver.multigrid import MultigridSolveContext, SolverConfig
+from gravo_mg import MultigridSolver
+from gravo_mg.solver.multigrid import MultigridSolveContext, SolverConfig
 
 
 def _ctx(mesh, lhs):
@@ -112,7 +112,7 @@ def test_deflation_survives_mesh_rescaling(sphere_mesh):
 def test_deflation_alpha_rejects_roundoff_rowsums():
     """Sign-incoherent (roundoff-noise) row sums must NOT deflate —
     dividing by their near-cancelling sum would produce huge alphas."""
-    from gravo_mg_tpu.solver.multigrid import deflation_alpha
+    from gravo_mg.solver.multigrid import deflation_alpha
 
     rng = np.random.default_rng(0)
     noise = rng.standard_normal(10000) * 1e-16

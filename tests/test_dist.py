@@ -5,8 +5,8 @@ import jax
 import numpy as np
 import pytest
 
-from gravo_mg_tpu import MultigridSolver
-from gravo_mg_tpu.parallel.dist import (
+from gravo_mg import MultigridSolver
+from gravo_mg.parallel.dist import (
     make_solver_mesh,
     shard_context,
     sharded_cycle_step,
@@ -40,7 +40,7 @@ def test_sharded_cycle_matches_single_device(setup):
 
     b = jnp.asarray(rhs[:, 0], jnp.float32)
     x0 = jnp.zeros_like(b)
-    from gravo_mg_tpu.solver.multigrid import cycle_step
+    from gravo_mg.solver.multigrid import cycle_step
 
     x_single = np.asarray(cycle_step(ctx.cfg, ctx.levels, ctx.coarse_op, b, x0))
     x_dist = np.asarray(sharded_cycle_step(sctx, rhs[:, 0], np.zeros(len(rhs))))

@@ -1,17 +1,16 @@
 """End-to-end float64 solve path: the reference convergence-plot protocol
 iterates to tol 1e-12 (experiments/table_scripts/convergence_plots.sh),
 which is far below the f32 residual floor — dtype=float64 runs smoother,
-transfers and residual in f64 (the shuffle kernel falls back to the XLA
-formulation; scoped to small/medium meshes)."""
+transfers and residual in f64 (scoped to small/medium meshes)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gravo_mg_tpu import MultigridSolver
-from gravo_mg_tpu.utils.laplacian import cotan_laplacian, mass_barycentric
-from gravo_mg_tpu.utils.meshgen import torus_mesh
-from gravo_mg_tpu.utils.neighbors import neighbors_from_faces
+from gravo_mg import MultigridSolver
+from gravo_mg.utils.laplacian import cotan_laplacian, mass_barycentric
+from gravo_mg.utils.meshgen import torus_mesh
+from gravo_mg.utils.neighbors import neighbors_from_faces
 
 
 @pytest.fixture(scope="module")

@@ -8,9 +8,9 @@ BASELINE config 5)."""
 import numpy as np
 import pytest
 
-from gravo_mg_tpu import MultigridSolver
-from gravo_mg_tpu.parallel.dist import make_solver_mesh, shard_context, sharded_solve
-from gravo_mg_tpu.parallel.halo import HaloContext
+from gravo_mg import MultigridSolver
+from gravo_mg.parallel.dist import make_solver_mesh, shard_context, sharded_solve
+from gravo_mg.parallel.halo import HaloContext
 
 
 @pytest.fixture(scope="module")
@@ -109,9 +109,9 @@ def test_halo_solve_4m_vertices():
     Measured on the virtual 8-CPU mesh: hierarchy 42s, context 113s, halo
     build 73s, solve 15 cycles to 1e-4; level-0 halo 4096 of 524288 local
     rows (0.8%)."""
-    from gravo_mg_tpu.utils.laplacian import cotan_laplacian, mass_barycentric
-    from gravo_mg_tpu.utils.meshgen import torus_mesh
-    from gravo_mg_tpu.utils.neighbors import neighbors_from_faces
+    from gravo_mg.utils.laplacian import cotan_laplacian, mass_barycentric
+    from gravo_mg.utils.meshgen import torus_mesh
+    from gravo_mg.utils.neighbors import neighbors_from_faces
 
     V, F = torus_mesh(2048, 2048)  # 4,194,304 vertices
     S = cotan_laplacian(V, F)
@@ -224,9 +224,9 @@ def test_halo_setup_10m_vertices():
     in the assertion messages for the round log."""
     import resource
 
-    from gravo_mg_tpu.utils.laplacian import cotan_laplacian, mass_barycentric
-    from gravo_mg_tpu.utils.meshgen import torus_mesh
-    from gravo_mg_tpu.utils.neighbors import neighbors_from_faces
+    from gravo_mg.utils.laplacian import cotan_laplacian, mass_barycentric
+    from gravo_mg.utils.meshgen import torus_mesh
+    from gravo_mg.utils.neighbors import neighbors_from_faces
 
     V, F = torus_mesh(3240, 3240)  # 10,497,600 vertices
     n = V.shape[0]

@@ -4,12 +4,12 @@ row-sums = 1, bounded nnz/row, DoF ratios ~ 1/ratio)."""
 import numpy as np
 import pytest
 
-from gravo_mg_tpu import Sampling, Weighting, build_hierarchy
-from gravo_mg_tpu.hierarchy.variants import (
+from gravo_mg import Sampling, Weighting, build_hierarchy
+from gravo_mg.hierarchy.variants import (
     build_hierarchy_ablation,
     build_hierarchy_sig06,
 )
-from gravo_mg_tpu.utils.io import load_hierarchy, save_hierarchy
+from gravo_mg.utils.io import load_hierarchy, save_hierarchy
 
 
 def _check_hierarchy(h, nnz_max=3, rowsum=True):
@@ -132,12 +132,12 @@ def test_hierarchy_save_load(sphere_mesh, tmp_path):
 def test_normals_propagate_through_hierarchy():
     """Ctor normals are carried per level as cluster-averaged unit vectors
     (exceeds the reference, whose coarse_normals getter is never filled)."""
-    from gravo_mg_tpu import MultigridSolver
-    from gravo_mg_tpu.utils.laplacian import (
+    from gravo_mg import MultigridSolver
+    from gravo_mg.utils.laplacian import (
         cotan_laplacian, mass_voronoi, per_vertex_normals,
     )
-    from gravo_mg_tpu.utils.meshgen import icosphere
-    from gravo_mg_tpu.utils.neighbors import neighbors_from_faces
+    from gravo_mg.utils.meshgen import icosphere
+    from gravo_mg.utils.neighbors import neighbors_from_faces
 
     V, F = icosphere(4)
     N = per_vertex_normals(V, F)

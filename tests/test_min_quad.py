@@ -8,10 +8,10 @@ A_uu x_u = B_u - A_uk Y and stops on absolute l2 residual).
 import numpy as np
 import scipy.sparse.linalg as spla
 
-from gravo_mg_tpu import MinQuadWithFixedMG, MultigridSolver
-from gravo_mg_tpu.utils.laplacian import cotan_laplacian, mass_voronoi
-from gravo_mg_tpu.utils.meshgen import icosphere
-from gravo_mg_tpu.utils.neighbors import neighbors_from_faces
+from gravo_mg import MinQuadWithFixedMG, MultigridSolver
+from gravo_mg.utils.laplacian import cotan_laplacian, mass_voronoi
+from gravo_mg.utils.meshgen import icosphere
+from gravo_mg.utils.neighbors import neighbors_from_faces
 
 
 def _setup(subdiv=4, lower_bound=120, **kw):

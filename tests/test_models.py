@@ -2,13 +2,13 @@
 
 import numpy as np
 
-from gravo_mg_tpu import MultigridSolver
-from gravo_mg_tpu.models import (
+from gravo_mg import MultigridSolver
+from gravo_mg.models import (
     ConformalFlow,
     poisson_problem,
     smoothing_problem,
 )
-from gravo_mg_tpu.utils.meshgen import icosphere
+from gravo_mg.utils.meshgen import icosphere
 
 
 def test_smoothing_problem_solves():

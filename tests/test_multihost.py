@@ -5,8 +5,8 @@ Spawns two subprocesses that each initialize ``jax.distributed`` on CPU
 host-side context, and solve over the 8-device *global* mesh via
 HaloContext; each worker asserts the answer matches its process-local
 single-device solve (see multihost_worker.py).  This is the runnable spec
-for BASELINE config 5 (N>=2 hosts) — real pods follow the same code path
-with the TPU backend and DCN between processes.
+for BASELINE config 5 (N>=2 hosts) — multi-host GPU clusters follow the
+same code path with a network between processes.
 """
 import os
 import socket
@@ -57,7 +57,7 @@ def test_two_process_halo_solve():
 
 
 def test_order_steps_dcn_first():
-    from gravo_mg_tpu.parallel.multihost import order_steps_dcn_first
+    from gravo_mg.parallel.multihost import order_steps_dcn_first
 
     # 8 devices, 4 per process: shift 4 crosses for every device (8 DCN
     # transfers); shifts 1/-1 cross only at the process boundary (2);

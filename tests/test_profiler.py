@@ -3,7 +3,7 @@
 import io
 import time
 
-from gravo_mg_tpu.utils.profiler import (
+from gravo_mg.utils.profiler import (
     print_profile,
     profile_scope,
     profile_table,

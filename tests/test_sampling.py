@@ -9,13 +9,13 @@ import pytest
 import scipy.sparse as sp
 from scipy.sparse.csgraph import dijkstra
 
-from gravo_mg_tpu.hierarchy.cluster import cluster_labels
-from gravo_mg_tpu.hierarchy.sampling import (
+from gravo_mg.hierarchy.cluster import cluster_labels
+from gravo_mg.hierarchy.sampling import (
     parallel_disk_sample,
     poisson_disk_sample,
     random_sample,
 )
-from gravo_mg_tpu.utils.neighbors import neighbors_to_edges
+from gravo_mg.utils.neighbors import neighbors_to_edges
 
 
 def _graph_csr(pos, neigh):

@@ -1,9 +1,8 @@
-"""Shuffle-ELL: layout invariants, SpMV correctness, plan round-trips.
+"""Shuffle-ELL: layout invariants, SpMV correctness, round-trips.
 
-The shuffle format is the TPU-roofline sparse engine (sparse.ShuffleEll,
-ops/shuffle_spmv.py); on the CPU test backend it runs the XLA
-take_along_axis fallback — identical math, so these tests pin down the
-layout and plumbing while the pallas path is covered by bench runs.
+The shuffle format is the halo solver's per-device block layout
+(sparse.ShuffleEll, parallel/halo.py); its SpMV is plain jnp (block
+gather + take_along_axis), the same code on every backend.
 """
 
 import numpy as np
@@ -12,12 +11,10 @@ import scipy.sparse as sp
 
 import jax.numpy as jnp
 
-from gravo_mg_tpu.sparse import (
-    EllMatrix,
-    ShuffleTransfer,
+from gravo_mg.sparse import (
+    TransferPair,
     ell_from_scipy,
     shuffle_from_scipy,
-    shuffle_plan_from_ell,
     shuffle_spmv,
     spmv,
 )
@@ -53,7 +50,7 @@ def test_shuffle_roundtrip_and_padding_invariants():
     # round-trip preserves the matrix exactly
     d = (S.to_scipy() - A).tocoo()
     assert abs(d.data).max() if d.nnz else 0 == 0
-    # device arrays honor the kernel's tiling contract
+    # device arrays keep the layout's alignment contract
     kp, s = S.q.shape
     assert kp % 4 == 0 and s % 8 == 0
     assert S.r.shape == (kp, s, 128) and S.v.shape == (kp, s, 128)
@@ -70,28 +67,9 @@ def test_shuffle_spmv_multirhs():
     np.testing.assert_allclose(Y, A @ X, rtol=1e-10, atol=1e-12)
 
 
-def test_shuffle_plan_gather_matches_direct_pack():
-    """Plan-based value relayout (the per-solve Galerkin path) must agree
-    with packing the same matrix from scipy."""
-    A = _random_csr(300, 300, 0.05, 8, struct_diag=True)
-    ell = ell_from_scipy(A, dtype=jnp.float64)
-    idx = np.asarray(ell.indices)
-    mask = np.asarray(ell.values) != 0
-    mask |= idx == np.arange(idx.shape[1])[None, :]
-    plan = shuffle_plan_from_ell(idx, mask, 300)
-    S = plan.gather_values(ell)
-    d = (S.to_scipy() - A).tocoo()
-    assert (abs(d.data).max() if d.nnz else 0) < 1e-14
-    x = np.random.default_rng(9).standard_normal(300)
-    np.testing.assert_allclose(
-        np.asarray(shuffle_spmv(S, jnp.asarray(x))), A @ x,
-        rtol=1e-10, atol=1e-12,
-    )
-
-
 def test_shuffle_transfer_prolong_restrict():
     U = _random_csr(800, 120, 0.02, 10)
-    T = ShuffleTransfer(
+    T = TransferPair(
         shuffle_from_scipy(U, dtype=jnp.float64),
         shuffle_from_scipy(U.T.tocsr(), dtype=jnp.float64),
     )
@@ -117,9 +95,9 @@ def test_spmv_dispatch():
 
 def test_mesh_laplacian_slot_count_stays_small():
     """Index-localized matrices (mesh Laplacians) must pack into few
-    slots — the property that makes shuffle-SpMV roofline-bound."""
-    from gravo_mg_tpu.utils.laplacian import cotan_laplacian, mass_barycentric
-    from gravo_mg_tpu.utils.meshgen import torus_mesh
+    slots — the property that keeps the halo blocks' padding small."""
+    from gravo_mg.utils.laplacian import cotan_laplacian, mass_barycentric
+    from gravo_mg.utils.meshgen import torus_mesh
 
     V, F = torus_mesh(64, 64)
     L = (1e-6 * mass_barycentric(V, F) + cotan_laplacian(V, F)).tocsr()

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from gravo_mg_tpu import Hierarchy, MultigridSolver
-from gravo_mg_tpu.hierarchy.sig21 import build_sig21_hierarchy
+from gravo_mg import Hierarchy, MultigridSolver
+from gravo_mg.hierarchy.sig21 import build_sig21_hierarchy
 
 
 def test_sig21_build(sphere_mesh):
@@ -66,7 +66,7 @@ def test_sig21_decimation_strategies(sphere_mesh, dec_type):
 
 
 def test_sig21_block_prolongations(sphere_mesh):
-    from gravo_mg_tpu.hierarchy.sig21 import block_prolongations
+    from gravo_mg.hierarchy.sig21 import block_prolongations
 
     h = build_sig21_hierarchy(
         sphere_mesh["V"], sphere_mesh["F"], min_coarsest=100

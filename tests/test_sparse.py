@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from gravo_mg_tpu.sparse import (
+from gravo_mg.sparse import (
     ell_from_scipy,
     ell_to_dense,
     make_prolongation,
@@ -66,35 +66,3 @@ def test_prolongation_against_scipy():
     assert np.allclose(np.asarray(U.restrict(jnp.asarray(r))), Us.T @ r, atol=1e-10)
     R = np.random.default_rng(9).standard_normal((nf, 3))
     assert np.allclose(np.asarray(U.restrict(jnp.asarray(R))), Us.T @ R, atol=1e-10)
-
-
-def test_device_assemble_paths_match(monkeypatch):
-    """GRAVO_MG_DEVICE_ASSEMBLE=1 (scatter-assemble padded layouts on
-    device from the nnz stream) must produce bit-identical operators to
-    the host-upload path."""
-    import scipy.sparse as sp
-
-    from gravo_mg_tpu.sparse import diag_from_scipy, shuffle_from_scipy
-
-    rng = np.random.default_rng(11)
-    n = 2000
-    A = sp.random(n, n, density=0.004, random_state=7, format="csr")
-    A = A + sp.eye(n)
-
-    monkeypatch.setenv("GRAVO_MG_DEVICE_ASSEMBLE", "0")
-    Sh = shuffle_from_scipy(A)
-    Dh = diag_from_scipy(A)
-    monkeypatch.setenv("GRAVO_MG_DEVICE_ASSEMBLE", "1")
-    Sd = shuffle_from_scipy(A)
-    Dd = diag_from_scipy(A)
-    np.testing.assert_array_equal(np.asarray(Sh.r), np.asarray(Sd.r))
-    np.testing.assert_array_equal(np.asarray(Sh.v), np.asarray(Sd.v))
-    np.testing.assert_array_equal(np.asarray(Dh.r), np.asarray(Dd.r))
-    np.testing.assert_array_equal(np.asarray(Dh.v), np.asarray(Dd.v))
-    x = rng.standard_normal(n)
-    from gravo_mg_tpu.sparse import spmv
-
-    np.testing.assert_allclose(
-        np.asarray(spmv(Sd, jnp.asarray(x, jnp.float32))), A @ x,
-        rtol=2e-5, atol=2e-5,
-    )

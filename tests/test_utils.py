@@ -5,21 +5,21 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from gravo_mg_tpu.utils.laplacian import (
+from gravo_mg.utils.laplacian import (
     cotan_laplacian,
     mass_barycentric,
     mass_voronoi,
     point_cloud_laplacian,
 )
-from gravo_mg_tpu.utils.meshgen import grid_mesh, icosphere, point_cloud, torus_mesh
-from gravo_mg_tpu.utils.neighbors import (
+from gravo_mg.utils.meshgen import grid_mesh, icosphere, point_cloud, torus_mesh
+from gravo_mg.utils.neighbors import (
     homogenize_edges,
     knn_undirected,
     neighbors_from_faces,
     neighbors_from_stiffness,
     neighbors_to_edges,
 )
-from gravo_mg_tpu.utils.normalize import (
+from gravo_mg.utils.normalize import (
     normalize_area,
     normalize_bounding_box,
 )
@@ -118,7 +118,7 @@ def test_meshgen_shapes():
 def test_normalizers():
     V, F = icosphere(2)
     Vn = normalize_area(2.5 * V + 1.0, F)
-    from gravo_mg_tpu.utils.normalize import face_area
+    from gravo_mg.utils.normalize import face_area
 
     assert abs(face_area(Vn, F).sum() - 1.0) < 1e-8
     assert np.abs(Vn.mean(axis=0)).max() < 1e-8
@@ -129,7 +129,7 @@ def test_normalizers():
 def _nonmanifold_mesh():
     """Icosphere with a non-manifold fin (an edge with 3 incident faces),
     a T-junction vertex, a degenerate sliver face, and a duplicate face."""
-    from gravo_mg_tpu.utils.meshgen import icosphere
+    from gravo_mg.utils.meshgen import icosphere
 
     V, F = icosphere(3, bump=0.1)
     n = V.shape[0]
@@ -151,7 +151,7 @@ def test_robust_laplacian_nonmanifold():
     """mesh_laplacian_robust handles fins/slivers/duplicates: finite PSD
     stiffness, positive mass (reference comparisons.py --robust via
     robust_laplacian.mesh_laplacian)."""
-    from gravo_mg_tpu.utils.laplacian import mesh_laplacian_robust
+    from gravo_mg.utils.laplacian import mesh_laplacian_robust
 
     V, F, _ = _nonmanifold_mesh()
     S, M = mesh_laplacian_robust(V, F)
@@ -170,9 +170,9 @@ def test_robust_laplacian_nonmanifold():
 def test_robust_laplacian_solver_end_to_end():
     """A multigrid solve on the non-manifold mesh converges using the
     robust operators (the plain cotan path may produce invalid weights)."""
-    from gravo_mg_tpu import MultigridSolver
-    from gravo_mg_tpu.utils.laplacian import mesh_laplacian_robust
-    from gravo_mg_tpu.utils.neighbors import neighbors_from_stiffness
+    from gravo_mg import MultigridSolver
+    from gravo_mg.utils.laplacian import mesh_laplacian_robust
+    from gravo_mg.utils.neighbors import neighbors_from_stiffness
 
     V, F, _ = _nonmanifold_mesh()
     S, M = mesh_laplacian_robust(V, F)
@@ -188,10 +188,10 @@ def test_robust_laplacian_solver_end_to_end():
 def test_robust_matches_cotan_on_clean_mesh():
     """On a clean manifold mesh the mollified operator reduces to the
     standard cotan Laplacian (delta -> 0)."""
-    from gravo_mg_tpu.utils.laplacian import (
+    from gravo_mg.utils.laplacian import (
         cotan_laplacian, mesh_laplacian_robust,
     )
-    from gravo_mg_tpu.utils.meshgen import icosphere
+    from gravo_mg.utils.meshgen import icosphere
 
     V, F = icosphere(3)
     S0 = cotan_laplacian(V, F)
@@ -204,8 +204,8 @@ def test_ply_roundtrip(tmp_path):
     """Binary PLY write -> read recovers vertices and faces; ascii and
     variable-count faces also parse (reference harness reads .ply via
     plyfile, experiments/python/util.py:5-27)."""
-    from gravo_mg_tpu.utils.io import read_ply, read_pointcloud, write_ply
-    from gravo_mg_tpu.utils.meshgen import icosphere
+    from gravo_mg.utils.io import read_ply, read_pointcloud, write_ply
+    from gravo_mg.utils.meshgen import icosphere
 
     V, F = icosphere(2)
     p = tmp_path / "mesh.ply"
